@@ -1,10 +1,10 @@
-"""cmvs_pmvs_tpu: TPU-native multi-view stereo.
+"""cmvs_pmvs_tpu: GPU multi-view stereo in JAX.
 
 A from-scratch reimplementation of the CMVS/PMVS2 pipeline (Furukawa & Ponce)
-as a JAX/XLA/Pallas framework: batched patch-based dense reconstruction with
-Gauss-Newton photo-consistency refinement, vectorized expand/filter waves over
-per-image cell grids, and CMVS view clustering as a pod-scale partitioner over
-`jax.sharding` meshes.
+as a JAX/XLA framework for NVIDIA GPUs: batched patch-based dense
+reconstruction with Gauss-Newton photo-consistency refinement, vectorized
+expand/filter waves over per-image cell grids, and CMVS view clustering with
+clusters spread over processes or `jax.sharding` meshes.
 
 Layer map (mirrors reference /root/reference layering, SURVEY.md section 1):
   utils/   - options/config (reference include/pmvs/option.hpp)

@@ -14,6 +14,8 @@ def main(argv=None):
     prefix = argv[0]
     maximage = int(argv[1]) if len(argv) >= 2 else 100
     from ..models.cmvs import run_cmvs
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     run_cmvs(prefix, maximage=maximage)
     return 0
 

@@ -12,6 +12,8 @@ def main(argv=None):
         return 1
     prefix, option = argv[0], argv[1]
     from ..models.engine import reconstruct
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     reconstruct(prefix, option)
     return 0
 

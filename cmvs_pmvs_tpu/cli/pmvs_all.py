@@ -24,6 +24,8 @@ def main(argv=None):
     pcnt = int(args[2]) if len(args) > 2 else None
 
     from ..parallel.clusters import merge_models, run_clusters
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     runs = run_clusters(prefix, process_index=pidx, process_count=pcnt,
                         checkpoint=True)
     total = sum(r.patches for r in runs)

@@ -1,6 +1,6 @@
 """Batched camera geometry as pure JAX functions.
 
-TPU-first equivalent of the reference camera layer
+Batched equivalent of the reference camera layer
 (reference include/image/camera.hpp, source/image/camera.cpp): instead of a
 CCamera object per image, all N cameras live in one struct-of-arrays
 `CameraSet` pytree, and every operation is batched/jittable. Level-l
@@ -19,6 +19,11 @@ from dataclasses import dataclass
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+# Every f32 contraction of the engine asks for full f32 accuracy: by
+# default a GPU may run an f32 dot in TF32 (~10 mantissa bits, about
+# 0.5 px at 640 px), which moves projections and NCC scores.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 PROJ_SENTINEL = -65535.0  # reference camera.hpp:95-99 (-0xffff)
 _CLIP = 1.0e9
@@ -115,7 +120,8 @@ def level_projection(P, level):
 
 def mult(P, coord, level=0):
     """Raw projective product, no divide (reference camera.hpp:110-117)."""
-    return jnp.einsum("...ij,...j->...i", level_projection(P, level), coord)
+    return jnp.einsum("...ij,...j->...i", level_projection(P, level), coord,
+                      precision=HIGHEST)
 
 
 def project(P, coord, level=0):
@@ -142,7 +148,8 @@ def project_level(cams: CameraSet, index, coord, level=0):
 def depth_along_axis(cams: CameraSet, index, coord):
     """Depth along the optical axis: oaxis . coord
     (reference camera.cpp:445-452, perspective branch)."""
-    return jnp.einsum("...j,...j->...", cams.oaxis[index], coord)
+    return jnp.einsum("...j,...j->...", cams.oaxis[index], coord,
+                      precision=HIGHEST)
 
 
 def get_unit(cams: CameraSet, index, coord, level):
@@ -211,10 +218,11 @@ def fundamental_matrix(P0, P1, level=0):
 def epipolar_distance(F, p0, p1):
     """Symmetric-free epipolar distance |unit(F p1) . p0|
     (reference include/image/camera.hpp:119-127)."""
-    line = jnp.einsum("...ij,...j->...i", F, p1)
+    line = jnp.einsum("...ij,...j->...i", F, p1, precision=HIGHEST)
     ftmp = jnp.sqrt(line[..., 0] ** 2 + line[..., 1] ** 2)
     safe = jnp.where(ftmp == 0.0, 1.0, ftmp)
-    d = jnp.abs(jnp.einsum("...i,...i->...", line / safe[..., None], p0))
+    d = jnp.abs(jnp.einsum("...i,...i->...", line / safe[..., None], p0,
+                           precision=HIGHEST))
     return jnp.where(ftmp == 0.0, 0.0, d)
 
 
@@ -237,8 +245,8 @@ def triangulate_dlt(P0l, P1l, icoord0, icoord1):
     A4 = jnp.stack([a0, a1, a2, a3], axis=-2)   # [..., 4, 4]
     A = A4[..., :3]
     b = -A4[..., 3]
-    ATA = jnp.einsum("...ki,...kj->...ij", A, A)
-    ATb = jnp.einsum("...ki,...k->...i", A, b)
+    ATA = jnp.einsum("...ki,...kj->...ij", A, A, precision=HIGHEST)
+    ATb = jnp.einsum("...ki,...k->...i", A, b, precision=HIGHEST)
     x = jnp.linalg.solve(ATA, ATb[..., None])[..., 0]
     ones = jnp.ones(x.shape[:-1] + (1,), x.dtype)
     return jnp.concatenate([x, ones], axis=-1)

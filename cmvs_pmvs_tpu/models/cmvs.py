@@ -790,8 +790,7 @@ def load_problem(prefix: str) -> CmvsProblem:
     ipscales = np.zeros(cnum)
     widths = np.zeros(cnum, dtype=np.int64)
     heights = np.zeros(cnum, dtype=np.int64)
-    from ..io.images import find_image_path
-    from PIL import Image
+    from ..io.images import find_image_path, image_size
     for c in range(cnum):
         P = read_camera_txt(os.path.join(prefix, "txt", "%08d.txt" % c))
         centers[c] = np.linalg.solve(P[:, :3], -P[:, 3])
@@ -800,8 +799,7 @@ def load_problem(prefix: str) -> CmvsProblem:
         path = find_image_path(os.path.join(prefix, "visualize"), c)
         if path is None:
             raise FileNotFoundError(f"missing image {c}")
-        with Image.open(path) as im:
-            widths[c], heights[c] = im.size
+        widths[c], heights[c] = image_size(path)
     # The reference hardcodes dlevel=7 assuming ~2Mpix SfM images
     # (bundle.cpp:65-66, "SfM was done on 2M pixels": 128px blocks on a
     # ~1600px-wide image). Scale the block size with actual resolution so

@@ -1,6 +1,6 @@
 """Patch expansion as vectorized frontier waves.
 
-TPU-first port of CExpand (reference source/pmvs/expand.cpp): the
+Batched port of CExpand (reference source/pmvs/expand.cpp): the
 priority-queue of patches drained by threads becomes a frontier mask over
 the cloud; each wave, every frontier patch proposes up to 6 tangent-plane
 candidates (findEmptyBlocks, expand.cpp:108-180), candidates are gated,

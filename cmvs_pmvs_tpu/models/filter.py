@@ -1,6 +1,6 @@
 """Outlier filtering as batched passes over the patch cloud.
 
-TPU-first port of CFilter (reference source/pmvs/filter.cpp): the four
+Batched port of CFilter (reference source/pmvs/filter.cpp): the four
 passes - outside-gain, exact visibility, quadric-fit neighborhood, small
 connected components - run as dense masked computations using the
 sort-based cell tables instead of per-cell shared_ptr lists.
@@ -48,8 +48,8 @@ def _pair_hunit(cams, cfg, cloud, q):
 def _cell_lookup(cfg, tab: CellTable, images, grids, ox, oy):
     """Window lookup helper, K-folded: images/grids [P, M] ->
     (q patch ids [P, M*K], hit mask [P, M*K]); column m*K+j is the j-th
-    occupant of slot m's cell (grid.lookup_flat keeps the minor dim off
-    the TPU lane-padding cliff)."""
+    occupant of slot m's cell (grid.lookup_flat keeps a size-K minor dim
+    out of the gathered intermediates)."""
     cx = grids[..., 0] + ox
     cy = grids[..., 1] + oy
     ok = ((images >= 0) & (images < cfg.tn) & (cx >= 0) & (cx < cfg.gw)
@@ -66,9 +66,9 @@ def _cell_lookup(cfg, tab: CellTable, images, grids, ox, oy):
 def _solve5x5_spd(A, b):
     """Batched unrolled Cholesky solve for SPD [B, 5, 5] systems.
 
-    jnp.linalg.solve lowers to a LAPACK-style custom call on TPU (the
-    same ~ms-scale cost the 3x3 LM solve paid before ops/refine._solve3x3
-    replaced it); an unrolled LL^T stays pure fusible elementwise math.
+    jnp.linalg.solve lowers to a solver library call per batch (as the
+    3x3 LM solve did before ops/refine._solve3x3 replaced it); an
+    unrolled LL^T stays pure fusible elementwise math.
     Callers add a ridge so A is well-conditioned.
     """
     n = 5
@@ -219,13 +219,13 @@ def filter_exact(cams: CameraSet, pyr, cfg: EngineConfig,
                    alive=alive)
 
 
-# HBM clamp for the filterNeighbor pair pass (VERDICT r3 weak 7): each
-# live pair carries ~75 f32 lanes at peak (the 16-wide R and 7-wide Q
-# packs, 19 scatter columns, the tangent/moment temps and the residual
-# re-read) ~= 300 B/pair, so the old 1 << 28 budget would have allocated
-# ~80 GB. 16 MiPairs ~= 5 GB of transient HBM, safely inside a v5e chip
-# alongside the cloud + pyramids; denser clouds run the pass in row
-# chunks (filter_neighbor_chunked) with identical per-patch decisions.
+# Device-memory clamp for the filterNeighbor pair pass: each live pair
+# carries its R and Q packs, scatter columns and tangent/moment temps.
+# At 16 MiPairs XLA's memory_analysis on an H100 reports 0.68 GiB of
+# temporaries for one pass with a 200k cloud (PERF.md), a small share
+# of the card beside the cloud + pyramids; denser clouds run the pass
+# in row chunks (filter_neighbor_chunked) with identical per-patch
+# decisions.
 MAX_PAIRS_PER_PASS = 16 << 20
 
 

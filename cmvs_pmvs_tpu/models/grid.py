@@ -1,6 +1,6 @@
 """Cell-grid state: occupancy, attempt counters, depth maps, neighbors.
 
-TPU-first replacement for CPatchOrganizerS's per-cell shared_ptr lists and
+Batched replacement for CPatchOrganizerS's per-cell shared_ptr lists and
 locks (reference source/pmvs/patchOrganizerS.cpp): dense [TN, GH, GW]
 tensors maintained by scatter ops, plus a sort-based cell membership table
 that gives each patch bounded access to its cell-mates (the reference walks
@@ -16,7 +16,7 @@ from dataclasses import dataclass, field
 import jax
 import jax.numpy as jnp
 
-from ..geom.cameras import CameraSet, get_unit, project
+from ..geom.cameras import HIGHEST, CameraSet, get_unit, project
 from .patches import PatchCloud
 
 INF = jnp.inf
@@ -32,10 +32,9 @@ def cell_of(cams: CameraSet, level: int, csize: int, coord, images):
 
     Implementation note: projections run against ALL cameras as one
     [.., 4] x [4, N*3] matmul and the per-slot rows are then selected
-    by a flat lane gather. Gathering P per slot instead (`cams.P[vid]`)
-    materializes a [B, T, 3, 4] tensor whose 12-element minor dims the
-    TPU tile-pads ~40x - 13.5 GB and an HBM OOM at full-scene
-    expand_discover batches (round-4 repro).
+    by a flat gather. Gathering P per slot instead (`cams.P[vid]`)
+    materializes a [B, T, 3, 4] tensor per call, 12x the coordinates'
+    size at full-scene expand_discover batches.
     """
     from ..geom.cameras import PROJ_SENTINEL, level_projection
     vid = jnp.maximum(images, 0)
@@ -43,13 +42,14 @@ def cell_of(cams: CameraSet, level: int, csize: int, coord, images):
     Pf = level_projection(cams.P, level).reshape(n * 3, 4).T  # [4, N*3]
     offs = jnp.arange(3, dtype=jnp.int32)
     if coord.shape[:-1] == images.shape:
-        base = coord @ Pf                                     # [..., N*3]
+        base = jnp.matmul(coord, Pf, precision=HIGHEST)      # [..., N*3]
         idx = vid[..., None] * 3 + offs
         q = jnp.take_along_axis(base, idx, axis=-1)           # [..., 3]
     else:
         assert coord.shape[:-2] == images.shape[:-1] \
             and coord.shape[-2] == 1, (coord.shape, images.shape)
-        base = coord[..., 0, :] @ Pf                          # [..., N*3]
+        base = jnp.matmul(coord[..., 0, :], Pf,
+                          precision=HIGHEST)                # [..., N*3]
         t = images.shape[-1]
         idx = (vid[..., None] * 3 + offs).reshape(
             images.shape[:-1] + (t * 3,))
@@ -131,7 +131,8 @@ def rebuild_depth_maps(cams: CameraSet, cloud: PatchCloud, level: int,
     ic = project(cams.P[tgt][None], cloud.coord[:, None, :], level)
     fx = ic[..., 0] / csize                          # [P, TN]
     fy = ic[..., 1] / csize
-    depth = jnp.einsum("tk,pk->pt", cams.oaxis[tgt], cloud.coord)
+    depth = jnp.einsum("tk,pk->pt", cams.oaxis[tgt], cloud.coord,
+                       precision=HIGHEST)
     behind = ic[..., 2] < 0.0
 
     # floor/ceil kept as separate [P, TN] arrays (a stacked [P, TN, 2]
@@ -192,9 +193,9 @@ def is_visible(cams: CameraSet, cloud: PatchCloud, grid: GridState,
 
     ray = coord - cams.center[img]
     ray = ray / jnp.linalg.norm(ray[..., :3], axis=-1, keepdims=True)
-    diff = jnp.einsum("...k,...k->...", ray, coord - dcoord)
+    diff = jnp.einsum("...k,...k->...", ray, coord - dcoord, precision=HIGHEST)
     factor = jnp.minimum(2.0, 2.0 + jnp.einsum(
-        "...k,...k->...", ray[..., :3], normal[..., :3]))
+        "...k,...k->...", ray[..., :3], normal[..., :3], precision=HIGHEST))
     unit = get_unit(cams, img, coord, level)
     ok = diff < unit * csize * strict * factor
     return inb & (empty | ok)
@@ -236,10 +237,9 @@ class CellTable:
     def lookup_flat(self, cell_key, k: int):
         """lookup with the K fan-out folded into the minor dim:
         cell_key [B, M] -> (pids, hit) both [B, M*K]; column m*K+j is
-        the j-th occupant of query cell m. TPU tiles the last two dims
-        of every materialized array to (8, 128), so a [B, M, K] result
-        pads K -> 128 lanes (8-16x memory at cloud capacity, see
-        soa_fields); the folded layout keeps padding bounded."""
+        the j-th occupant of query cell m. The folded 2-D layout keeps
+        every gathered intermediate [B, M*K] with no small minor
+        dimension."""
         ck = jnp.clip(cell_key, 0, self.sentinel - 1)
         startk = jnp.repeat(self.start[ck], k, axis=-1)      # [B, M*K]
         offsk = jnp.tile(jnp.arange(k), cell_key.shape[-1])
@@ -355,9 +355,8 @@ def count_window_pairs(tab: CellTable, cell_key, ok, k: int):
 def soa_fields(cloud: PatchCloud):
     """Per-component views of coord/normal for padding-free gathers.
 
-    TPU tiles the last two dims of every array to (8, 128) lanes; a
-    gathered [huge, 4] intermediate therefore pads 4 -> 128 lanes (32x
-    memory). Component arrays gathered as [P, M] avoid that entirely.
+    Component arrays gathered as [P, M] keep each gather a plain
+    2-D index lookup instead of a [huge, 4] row gather.
     """
     c = cloud.coord
     n = cloud.normal
@@ -435,13 +434,14 @@ def is_neighbor(coord0, normal0, dscale0, coord1, normal1, dscale1,
     All inputs broadcastable; hunit is the cross-patch pixel scale. When
     `radius` is given the isNeighborRadius variant is used.
     """
-    ndot = jnp.einsum("...k,...k->...", normal0[..., :3], normal1[..., :3])
+    ndot = jnp.einsum("...k,...k->...", normal0[..., :3], normal1[..., :3],
+                      precision=HIGHEST)
     ok = ndot >= jnp.cos(jnp.deg2rad(120.0))
 
     diff = coord1 - coord0
     vunit = dscale0 + dscale1
-    f0 = jnp.einsum("...k,...k->...", normal0, diff)
-    f1 = jnp.einsum("...k,...k->...", normal1, diff)
+    f0 = jnp.einsum("...k,...k->...", normal0, diff, precision=HIGHEST)
+    f1 = jnp.einsum("...k,...k->...", normal1, diff, precision=HIGHEST)
     ftmp = (jnp.abs(f0) + jnp.abs(f1)) / 2.0
     ftmp = ftmp / jnp.where(vunit == 0.0, 1.0, vunit)
     hvec = (2.0 * diff - normal0 * f0[..., None] - normal1 * f1[..., None])

@@ -1,6 +1,6 @@
 """PatchCloud: the reconstruction state as fixed-capacity struct-of-arrays.
 
-TPU-first replacement for the reference's heap-allocated patch objects and
+Batched replacement for the reference's heap-allocated patch objects and
 shared_ptr grids (reference include/pmvs/patch.hpp, patchOrganizerS.hpp):
 one dense tensor per field, an `alive` mask instead of allocation, and
 compaction by sort instead of erase. Capacities are static so every phase

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..geom.cameras import CameraSet
+from ..geom.cameras import HIGHEST, CameraSet
 from ..image.pyramid import PyramidSet
 from ..image.sample import mask_all
 from ..ops.refine import make_problem, refine_patches, set_scales
@@ -50,13 +50,12 @@ def _set_grids(cams, cfg: EngineConfig, coord, views, valid):
 
 
 # Batch ceiling for one process_candidates trace: the postProcess
-# texture passes gather one BLOCK_K x 3*BLOCK_K pixel block per
-# (candidate, view) pair (ops/pallas_incc.py), ~4.7 KB f32 each; at the
-# full-scene seed commit (115k candidates x 12 views) the unchunked
-# intermediates reach ~25 GB and the TPU AOT compile refuses (round-4
-# repro: "Allocation (size=25480396800) would exceed memory ...
-# f32[2073600,20,60]"). 8192 candidates/chunk keeps the live temps
-# ~1-2 GB and matches the refine kernel's bench batch.
+# texture passes and the refine loop hold [B, views, wsize^2, 3]
+# windows and their gathers for every candidate; at the full-scene
+# seed commit (115k candidates x 12 views) unchunked, a batch would take
+# a large share of an 80 GB card for temporaries. 8192 candidates per
+# chunk matches the refine evaluator's bench batch (memory_analysis on
+# an H100 at the full protocol: PERF.md).
 PROCESS_CHUNK = 8192
 
 
@@ -186,7 +185,8 @@ def process_candidates(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                               normal, ref, vmask)
     n = vmask.shape[1]
     flat = texs.reshape(b, n, -1)
-    D = jnp.einsum("bik,bjk->bij", flat, flat) / flat.shape[-1]
+    D = jnp.einsum("bik,bjk->bij", flat, flat,
+                   precision=HIGHEST) / flat.shape[-1]
     pair_ok = gok[:, :, None] & gok[:, None, :]
     rows_b = jnp.arange(b)
 

@@ -1,6 +1,6 @@
 """Seed generation: epipolar feature matching -> initial patches.
 
-TPU-first port of CSeed (reference source/pmvs/seed.cpp): instead of
+Batched port of CSeed (reference source/pmvs/seed.cpp): instead of
 per-thread sequential candidate trials, all (feature, view) epipolar
 matches are gated at once, the best few candidates per feature are
 triangulated and refined as one batch, and one winner per grid cell is
@@ -17,8 +17,8 @@ import jax
 import jax.numpy as jnp
 
 from ..geom.cameras import (
-    CameraSet, epipolar_distance, fundamental_matrix, level_projection,
-    project, triangulate_dlt,
+    HIGHEST, CameraSet, epipolar_distance, fundamental_matrix,
+    level_projection, project, triangulate_dlt,
 )
 from ..image.pyramid import PyramidSet
 from ..image.sample import mask_all
@@ -161,7 +161,7 @@ def collect_seed_candidates(cams: CameraSet, pyr: PyramidSet,
     # gates: positive depth in the reference view (seed.cpp:313),
     # all-view mask (seed.cpp:314)
     zrow = level_projection(cams.P[ref_ids], cfg.level)[:, 2]
-    depth = jnp.einsum("tk,t...k->t...", zrow, coord)
+    depth = jnp.einsum("tk,t...k->t...", zrow, coord, precision=HIGHEST)
     ok = ok & (depth > 0.0)
     ok = ok & mask_all(pyr, cams.P, coord, cfg.level)
     # useBound gate (reference seed.cpp:314)

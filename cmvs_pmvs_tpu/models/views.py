@@ -1,6 +1,6 @@
 """View-set selection for patches: the preProcess/postProcess machinery.
 
-TPU-first port of COptim's image-set management (reference
+Batched port of COptim's image-set management (reference
 source/pmvs/optim.cpp): during processing a patch's view set is a dense
 boolean mask [B, N] plus a reference index [B], rather than an ordered
 vector - order is recreated where it matters (slot 0 = reference; the
@@ -12,7 +12,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..geom.cameras import CameraSet, get_unit, project
+from ..geom.cameras import HIGHEST, CameraSet, get_unit, project
 from ..image.pyramid import PyramidSet
 from ..image.sample import edge_at
 from ..ops.refine import RefineProblem, per_view_inccs, _patch_axes
@@ -34,7 +34,7 @@ def collect_images_all(cams: CameraSet, visdata: jnp.ndarray,
     """
     n = cams.num
     axes = cams.oaxis[:, :3]
-    cosang = axes @ axes.T
+    cosang = jnp.matmul(axes, axes.T, precision=HIGHEST)
     ok = visdata & (cosang >= jnp.cos(jnp.deg2rad(60.0)))
     if sequence != -1:
         idx = jnp.arange(n)
@@ -66,7 +66,8 @@ def add_images(cams: CameraSet, pyr: PyramidSet, visdata: jnp.ndarray,
 
     ray = cams.center[None, :, :] - coord[:, None, :]
     ray = ray / jnp.linalg.norm(ray[..., :3], axis=-1, keepdims=True)
-    facing = jnp.einsum("bnk,bk->bn", ray[..., :3], normal[:, :3]) \
+    facing = jnp.einsum("bnk,bk->bn", ray[..., :3], normal[:, :3],
+                        precision=HIGHEST) \
         >= jnp.cos(jnp.deg2rad(60.0))
 
     return vmask | (cand & inside & edge & facing)
@@ -83,19 +84,17 @@ def remove_images_edge(pyr: PyramidSet, cams: CameraSet, level: int,
     return vmask & edge
 
 
-# Batch ceiling for one grab_masked trace: the block-geometry path
-# gathers a BLOCK_K x 3*BLOCK_K pixel block per (patch, view) pair
-# (~4.7 KB f32); unchunked at cloud scale (131k patches x 12 views in
-# the round-4 full-scene repro) the gather intermediates reach ~19 GB
-# and the TPU AOT compile refuses. Chunks run through one sequential
-# lax.map of a single compiled body.
+# Batch ceiling for one grab_masked trace: every (patch, view) pair of
+# the batch holds its wsize^2 x 3 window and 4 gathered taps per sample;
+# at cloud scale (131k patches x 12 views) that is several GB of
+# temporaries for one call. Chunks run through one sequential lax.map of
+# a single compiled body (memory_analysis on an H100: PERF.md).
 GRAB_CHUNK = 8192
 
 
 def grab_masked(cams, pyr, level, wsize, coord, normal, ref, vmask):
     """Textures for every view in vmask, axes from the reference view.
-    Returns (texs [B, N, S2, 3] normalized, ok [B, N]). On TPU the
-    grab+normalize runs in the Pallas windows kernel. Batches beyond
+    Returns (texs [B, N, S2, 3] normalized, ok [B, N]). Batches beyond
     GRAB_CHUNK rows are processed in lax.map chunks."""
     b = coord.shape[0]
     if b > GRAB_CHUNK:
@@ -134,16 +133,6 @@ def _grab_masked_one(cams, pyr, level, wsize, coord, normal, ref, vmask):
     px, py = _patch_axes(cams, level, ref, coord, normal)
     views = jnp.broadcast_to(jnp.arange(n, dtype=jnp.int32)[None],
                              vmask.shape)
-    from ..ops.refine import _pallas_enabled
-    if _pallas_enabled():
-        from ..ops.pallas_incc import windows_pallas
-        from ..ops.texture import grab_block_geometry
-        starts, relx, rely, ok = grab_block_geometry(
-            cams, pyr, level, wsize, coord, px, py, normal, views, vmask)
-        texs = windows_pallas(pyr.atlas, starts, relx, rely,
-                              ok.reshape(-1).astype(jnp.float32),
-                              t=n, s2=wsize * wsize)
-        return texs, ok
     texs, ok = grab_tex(cams, pyr, level, wsize, coord, px, py, normal,
                         views, vmask)
     return normalize_tex(texs, ok), ok
@@ -171,7 +160,8 @@ def filter_images_by_angle(cams, coord, normal, ref, vmask,
     fails, the whole set is cleared (reference optim.cpp:124-148)."""
     ray = cams.center[None, :, :] - coord[:, None, :]
     ray = ray / jnp.linalg.norm(ray[..., :3], axis=-1, keepdims=True)
-    good = jnp.einsum("bnk,bk->bn", ray[..., :3], normal[:, :3]) \
+    good = jnp.einsum("bnk,bk->bn", ray[..., :3], normal[:, :3],
+                      precision=HIGHEST) \
         >= jnp.cos(angle_threshold)
     b = coord.shape[0]
     ref_good = good[jnp.arange(b), ref]
@@ -193,7 +183,7 @@ def sort_images(cams: CameraSet, level: int, coord, normal, ref, vmask,
     ray = cams.center[None, :, :] - coord[:, None, :]
     ray = ray / jnp.linalg.norm(ray[..., :3], axis=-1, keepdims=True)
     ray3 = ray[..., :3]
-    dots = jnp.einsum("bnk,bk->bn", ray3, normal[:, :3])
+    dots = jnp.einsum("bnk,bk->bn", ray3, normal[:, :3], precision=HIGHEST)
     unit = get_unit(cams, jnp.arange(n)[None], coord[:, None, :], level)
     units = jnp.where((dots > 0.0) & vmask,
                       unit / jnp.where(dots > 0.0, dots, 1.0), HUGE)
@@ -207,7 +197,7 @@ def sort_images(cams: CameraSet, level: int, coord, normal, ref, vmask,
         pick = jnp.argmin(units_c, axis=1)                    # [B]
         pick_ok = jnp.take_along_axis(units_c, pick[:, None], 1)[:, 0] < HUGE
         rsel = ray3[jnp.arange(b), pick]                      # [B, 3]
-        cone = 1.0 - jnp.einsum("bnk,bk->bn", ray3, rsel)
+        cone = 1.0 - jnp.einsum("bnk,bk->bn", ray3, rsel, precision=HIGHEST)
         ftmp = jnp.minimum(threshold, jnp.maximum(threshold / 2.0, cone))
         units_c = units_c * (threshold / ftmp)
         units_c = units_c.at[jnp.arange(b), pick].set(HUGE)
@@ -227,7 +217,8 @@ def check_angles(cams: CameraSet, coord, views, valid, min_angle,
     vid = jnp.maximum(views, 0)
     ray = cams.center[vid] - coord[:, None, :]                # [B, T, 4]
     ray = ray / jnp.linalg.norm(ray[..., :3], axis=-1, keepdims=True)
-    dots = jnp.einsum("bik,bjk->bij", ray[..., :3], ray[..., :3])
+    dots = jnp.einsum("bik,bjk->bij", ray[..., :3], ray[..., :3],
+                      precision=HIGHEST)
     ang = jnp.arccos(jnp.clip(dots, -1.0, 1.0))
     pair = valid[:, :, None] & valid[:, None, :]
     t = views.shape[1]
@@ -244,7 +235,8 @@ def set_ref_image(cams, pyr, level, wsize, tn: int, coord, normal, ref,
     texs, gok = grab_masked(cams, pyr, level, wsize, coord, normal, ref,
                             vmask)
     n = vmask.shape[1]
-    dots = jnp.einsum("bisc,bjsc->bij", texs, texs) / texs[0, 0].size
+    dots = jnp.einsum("bisc,bjsc->bij", texs, texs,
+                      precision=HIGHEST) / texs[0, 0].size
     incc = robustincc(1.0 - dots)
     pair_ok = gok[:, :, None] & gok[:, None, :]
     incc = jnp.where(pair_ok, incc, 2.0)

@@ -1,6 +1,6 @@
 """Harris + Difference-of-Gaussians feature detection as batched XLA convs.
 
-TPU-first port of the reference detector stack (source/pmvs/harris.cpp,
+Batched port of the reference detector stack (source/pmvs/harris.cpp,
 dog.cpp, detector.cpp, detectFeatures.cpp): all N views are processed as one
 [N, H, W, 3] batch; the per-32px-bucket top-4 selection becomes a reshaped
 top-k.

@@ -1,4 +1,4 @@
-"""Cluster-level scheduling: the TPU-native replacement for pmvs.sh.
+"""Cluster-level scheduling: the in-process replacement for pmvs.sh.
 
 The reference's distributed backend is genOption's shell script - one
 pmvs2 process per cluster, sharing nothing at runtime (reference
@@ -6,10 +6,10 @@ source/genOption.cpp:58-74; SURVEY.md section 2.5 row 3). Here the same
 artifacts (ske.dat -> option-%04d + pmvs.sh) drive a scheduler:
 
   * clusters are assigned to JAX processes (hosts) by static round-robin
-    over `jax.process_index()` - the DCN axis of a multi-host run; each
-    host reconstructs its clusters on its local chips,
+    over `jax.process_index()` - one process per host or per card; each
+    host reconstructs its clusters on its local devices,
   * within one cluster the (patch x view) mesh of parallel/sharding
-    shards refinement waves over local devices (ICI),
+    shards refinement waves over local devices,
   * per-cluster patch clouds merge by concatenation - exactly the
     downstream contract of the reference pipeline (clusters share
     nothing at runtime; CMVS's `oimages` overlap is the halo, re-read

@@ -4,7 +4,7 @@ The reference's cluster parallelism shares nothing at runtime: one
 pmvs2 process per option-%04d file, coordinated only by genOption's
 shell script (reference source/genOption.cpp:58-74), with CMVS's
 `oimages` overlap as the implicit halo each cluster re-reads from
-disk. SURVEY.md section 5.8's TPU-native seam replaces that file-only
+disk. SURVEY.md section 5.8's in-engine seam replaces that file-only
 handoff with an in-engine exchange at cluster boundaries - this module
 is the prototype (VERDICT r4 item 8: 2 clusters, correctness first):
 

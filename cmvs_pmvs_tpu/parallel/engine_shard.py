@@ -2,7 +2,7 @@
 
 The reference parallelizes reconstruction as one OS process per cluster
 with the filesystem as the backend (reference source/genOption.cpp:58-74;
-SURVEY.md 2.5). In-engine, the TPU replacement shards the patch cloud -
+SURVEY.md 2.5). In-engine, the replacement shards the patch cloud -
 the state every phase reads and writes - across a device mesh's `patch`
 axis and lets XLA GSPMD partition each jitted phase program, inserting
 the collectives the design calls for (SURVEY.md 5.8): all-gathers where

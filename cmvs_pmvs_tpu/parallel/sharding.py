@@ -1,7 +1,7 @@
 """Multi-chip sharding of the reconstruction step.
 
 The reference's "distributed backend" is the filesystem + one process per
-cluster (SURVEY.md section 2.5). The TPU-native replacement is a
+cluster (SURVEY.md section 2.5). The in-process replacement is a
 jax.sharding.Mesh with two axes:
 
   * `patch` - the data-parallel axis: the candidate/refine batch and the
@@ -10,7 +10,7 @@ jax.sharding.Mesh with two axes:
     scatter-min under image locks).
   * `view`  - the tensor-parallel axis: each shard grabs textures for its
     slice of a patch's views and the Gauss-Newton normal equations /
-    INCC sums are psum'd over ICI (ops/refine accepts `view_axis`).
+    INCC sums are psum'd across devices (ops/refine accepts `view_axis`).
 
 Cluster-level (multi-host) partitioning composes on top: CMVS clusters map
 to independent mesh slices with `oimages` overlap exchanged between them
@@ -24,12 +24,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
-from ..geom.cameras import CameraSet, project
+from ..geom.cameras import HIGHEST, CameraSet, project
 from ..image.pyramid import PyramidSet
 from ..ops.refine import (
     RefineProblem, compute_weighted_incc, make_problem, refine_patches,
@@ -96,7 +93,8 @@ def sharded_refine_step(mesh: Mesh, cams: CameraSet, pyr: PyramidSet,
         ic = project(cams.P[tgt][None], coord2[:, None, :], level)
         cx = jnp.floor(ic[..., 0] / csize).astype(jnp.int32)
         cy = jnp.floor(ic[..., 1] / csize).astype(jnp.int32)
-        depth = jnp.einsum("tk,pk->pt", cams.oaxis[tgt], coord2)
+        depth = jnp.einsum("tk,pk->pt", cams.oaxis[tgt], coord2,
+                           precision=HIGHEST)
         ok = (active[:, None] & (ic[..., 2] > 0) & (cx >= 0) & (cx < gw)
               & (cy >= 0) & (cy < gh))
         key = (tgt[None] * gh + jnp.clip(cy, 0, gh - 1)) * gw \

@@ -73,8 +73,14 @@ def make_plane_scene(num_cameras: int = 6, width: int = 320,
                      height: int = 240, focal: float = 400.0,
                      ring_radius: float = 1.2, ring_height: float = 3.0,
                      seed: int = 42,
-                     tilt: float = 0.0) -> SyntheticScene:
+                     tilt: float = 0.0,
+                     look_radius: float = 0.0) -> SyntheticScene:
     """Cameras on a ring above the plane z=0, looking at the origin.
+
+    `look_radius` > 0 turns camera i toward the point at that radius in
+    its own direction instead, so each view sees its own stretch of a
+    wide plane (a walk around a courtyard: views far apart on the ring
+    share nothing, which is what makes CMVS split them into clusters).
 
     `tilt` rotates the plane about the x axis (radians) to exercise
     non-frontoparallel normals; the texture is attached to the plane.
@@ -100,7 +106,8 @@ def make_plane_scene(num_cameras: int = 6, width: int = 320,
         ang = 2 * math.pi * i / num_cameras
         C = np.array([ring_radius * math.cos(ang),
                       ring_radius * math.sin(ang), ring_height])
-        R = _look_at(C, np.zeros(3), up=np.array([0.0, 1.0, 0.0]))
+        target = look_radius * np.array([math.cos(ang), math.sin(ang), 0.0])
+        R = _look_at(C, target, up=np.array([0.0, 1.0, 0.0]))
         t = -R @ C
         P = K @ np.hstack([R, t[:, None]])
         Ps.append(P)
@@ -237,7 +244,8 @@ def make_occluded_scene(num_cameras: int = 10, width: int = 320,
 
 
 def write_bundle_file(scene: SyntheticScene, root: str,
-                      num_points: int = 400, seed: int = 7) -> None:
+                      num_points: int = 400, seed: int = 7,
+                      extent: float = 0.45) -> None:
     """Write a synthetic bundle.rd.out: SfM points sampled on the plane,
     visible in every camera whose projection lands inside the image.
 
@@ -252,8 +260,8 @@ def write_bundle_file(scene: SyntheticScene, root: str,
     trials = 0
     while len(pts) < num_points and trials < num_points * 20:
         trials += 1
-        u = rng.uniform(-0.45, 0.45)
-        v = rng.uniform(-0.45, 0.45)
+        u = rng.uniform(-extent, extent)
+        v = rng.uniform(-extent, extent)
         X = u * np.array([1.0, 0, 0]) + v * np.array([0.0, 1.0, 0])
         Xh = np.append(X, 1.0)
         vis = []

@@ -1,7 +1,7 @@
 // Native runtime components for cmvs_pmvs_tpu.
 //
 // The reference is 100% C++ (SURVEY.md): its I/O, union-find and kNN live
-// in native code. The TPU build keeps the compute path in JAX/XLA/Pallas
+// in native code. This build keeps the compute path in JAX/XLA
 // and provides native equivalents for the host-side runtime pieces that
 // dominate outside the device: bulk text serialization of patch clouds
 // (reference source/pmvs/patchOrganizerS.cpp:687-819 writePLY/writePatches),

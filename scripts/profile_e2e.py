@@ -1,4 +1,6 @@
-"""Fine-grained phase timing on the bench scene (perf work scratch)."""
+"""Fine-grained phase timing of the e2e scene (or the full protocol with
+--full): host-clock seconds per jitted phase, then per filter sub-pass.
+Run: python scripts/profile_e2e.py [--full]"""
 import functools
 import os
 import sys
@@ -6,9 +8,9 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import bench as _bench
+from cmvs_pmvs_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
-_bench.enable_compile_cache()
+enable_compile_cache()
 
 import jax
 import numpy as np

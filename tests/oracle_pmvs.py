@@ -1,7 +1,7 @@
 """Sequential reference-semantics PMVS oracle (numpy + scipy).
 
 A literal, order-faithful re-implementation of the reference's seed +
-expand loop for tiny scenes, used to pin the TPU engine's batched wave
+expand loop for tiny scenes, used to pin the engine's batched wave
 semantics to the sequential algorithm at the AGGREGATE level
 (SURVEY.md section 7: the priority queue / first-2-successes /
 mutable-counter rules are order-dependent, so clouds are compared by

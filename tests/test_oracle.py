@@ -2,7 +2,7 @@
 
 Runs the sequential reference-semantics oracle (tests/oracle_pmvs.py -
 first-2-successes seeding, priority-queue expansion, mutable cell
-counters, scipy-Powell refinement of my_f) and the batched TPU engine
+counters, scipy-Powell refinement of my_f) and the batched engine
 on the same tiny synthetic scene with the same detected features, then
 compares the CLOUDS at the aggregate level (SURVEY.md section 7: the
 reference's order-dependent rules make patch-for-patch comparison

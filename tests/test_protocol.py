@@ -6,8 +6,8 @@ expansion queue drained to fixpoint and thresholds relaxed 0.05/iteration
 other e2e test truncates this (expand_iters=1, max_waves<=2); here the
 default-depth protocol runs on the occluded scene with masks and setEdge
 enabled, at the reference's default level 1 (option.cpp:11) and at
-level 0. The large-image (640x480) level-0 variant runs in bench.py's
-bench_e2e_full on the TPU, where it is minutes, not hours.
+level 0. The large-image (640x480) level-0 variant runs on the GPU in
+chip_smoke.py, where it is minutes, not hours.
 """
 import os
 
